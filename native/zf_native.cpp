@@ -1,6 +1,7 @@
 // zf_native — C++ host runtime for zigflac_tpu.
 //
-// The TPU owns the compute path (analysis, bit packing, CRC-16 of frames);
+// The accelerator owns the compute path (analysis, bit packing, CRC-16 of
+// frames);
 // this extension owns the serial host-side runtime around it, the pieces the
 // reference implements natively in Zig:
 //   * MD5 over the raw PCM byte stream (reference: src/Md5.zig — optionally
@@ -11,7 +12,7 @@
 //   * frame-stream assembly: slicing packed frame words + CRC footers into
 //     one contiguous FLAC byte stream (replaces a per-frame Python loop)
 //
-// Built as a plain CPython extension (no pybind11) via native/setup.py.
+// Built as a plain CPython extension (no pybind11) by native/build.py.
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>

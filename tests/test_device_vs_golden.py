@@ -240,11 +240,11 @@ def test_wide_rice_symbol_ragged_tail():
     ctz clamps partition order to 2, partitions >= 847 samples, so the
     escape threshold 847*15 bits exceeds the ~1.5k-bit unary quotient
     and Rice wins). Regression for the deposit prefix sum's matmul
-    precision: TPU default matmul precision truncates f32 operands to
-    bfloat16, which rounds any symbol width above 256 bits —
+    precision: bfloat16 operands would round any symbol width above 256
+    bits, and TF32 (a GPU's default f32 matmul mode) any above 2048 —
     _cumsum_bits_exact must run its dot at Precision.HIGHEST
-    (ops/bitpack.py). Exact on the CPU suite either way; the real-chip
-    leg is bench.py's wide-symbol verify on the same tail shape."""
+    (ops/bitpack.py). Exact on the CPU suite either way; the on-card legs
+    are tests/test_gpu.py and chip_smoke.py phase (g)."""
     from zigflac_tpu.models.encoder import Encoder
 
     B = 4096
@@ -256,5 +256,47 @@ def test_wide_rice_symbol_ragged_tail():
     info = StreamInfo(44100, 2, 16, n, B, B)
     g = Encoder(cfg, 16, backend="golden").encode_stream(samples, info)
     info2 = StreamInfo(44100, 2, 16, n, B, B)
+    d = Encoder(cfg, 16, backend="device").encode_stream(samples, info2)
+    assert g == d
+
+
+def test_impulse_tail_symbol_is_tf32_inexact():
+    """The on-card precision checks (tests/test_gpu.py, chip_smoke.py
+    phase (g)) rely on this content: a lone impulse of 2000 in an odd
+    2047-sample tail (one Rice partition) codes as a 4001-bit Rice symbol.
+    That width exceeds 2048 and is not a multiple of TF32's rounding step
+    at that magnitude, so TF32 in the prefix-sum matmul would shift every
+    later offset. And the device encode of it equals golden."""
+    import jax.numpy as jnp
+
+    from zigflac_tpu.models.encoder import Encoder
+    from zigflac_tpu.ops.analyze import plan_frames
+    from zigflac_tpu.ops.bitpack import frame_symbol_stream
+    from zigflac_tpu.ops.header import header_static
+
+    T = 2047
+    x = np.zeros((1, 2, T), np.int32)
+    x[0, 0, T // 3] = 2000
+    x[0, 1, (2 * T) // 3] = -1500
+    cfg = EncoderConfig(block_size=4096)
+    plan = plan_frames(jnp.asarray(x), 16, cfg)
+    d_cum, _, _, _ = frame_symbol_stream(
+        plan, jnp.zeros(1, jnp.int64), header_static(T, 44100, 16), T,
+        cfg.max_rice_order,
+    )
+    widths = np.diff(np.concatenate([[0], np.asarray(d_cum)[0]]))
+
+    def tf32_exact(v):  # 11 significant bits
+        step = 1 << max(int(v).bit_length() - 11, 0)
+        return v % step == 0
+
+    assert 4001 in widths
+    assert any(w > 2048 and not tf32_exact(w) for w in widths)
+
+    samples = np.zeros((2, 4096 + T), np.int64)
+    samples[:, 4096:] = x[0]
+    info = StreamInfo(44100, 2, 16, samples.shape[1], 4096, 4096)
+    g = Encoder(cfg, 16, backend="golden").encode_stream(samples, info)
+    info2 = StreamInfo(44100, 2, 16, samples.shape[1], 4096, 4096)
     d = Encoder(cfg, 16, backend="device").encode_stream(samples, info2)
     assert g == d

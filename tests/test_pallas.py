@@ -1,9 +1,10 @@
-"""Device bit-packing kernels: the group-aligned compaction gather and the
-windowed-binning Pallas deposit kernel (interpret mode on CPU; the real-TPU
-path is exercised by bench/pipeline)."""
+"""Device bit-packing: the group-aligned compaction gather, and the
+windowed deposit path (bitpack.deposit_stream_windowed) against the exact
+segment-sum deposits (bitpack.deposit_words) it must match bit for bit."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from zigflac_tpu.ops.bitpack import ALIGN_W, compact_stream_aligned
 
@@ -42,7 +43,7 @@ def test_compact_group_aligned_matches_reference(rng):
             )
 
 
-# -- windowed-binning deposit kernel (the production TPU deposit path) ------
+# -- windowed deposit path vs the exact segment-sum path ------------------
 
 def _rand_stream(rng, n, s, max_nbv=20, gap=4, dtype=np.uint32):
     """Random deposit stream: widths nb >= value widths nbv, some masked."""
@@ -55,212 +56,121 @@ def _rand_stream(rng, n, s, max_nbv=20, gap=4, dtype=np.uint32):
     return d_cum, val.astype(dtype), nbv
 
 
-def _run_both(d_cum, val, nbv, W, **kw):
-    import jax.numpy as jnp
-
-    from zigflac_tpu.ops.bitpack import _split_hi_lo, deposit_words
-    from zigflac_tpu.ops.pallas_deposit import deposit_words_binned
-
-    d_cum, val, nbv = jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv)
-    a = deposit_words(d_cum, val, nbv, W)
-    w0, hi, lo = _split_hi_lo(d_cum, val, nbv)
-    b, ovf = deposit_words_binned(w0, hi, lo, W, interpret=True, **kw)
-    return np.asarray(a), np.asarray(b), bool(np.asarray(ovf))
-
-
-def test_binned_deposit_matches_segsum(rng):
-    for n, s in [(3, 200), (2, 513), (1, 64)]:
-        d_cum, val, nbv = _rand_stream(rng, n, s)
-        W = int(d_cum.max() // 32) + 2
-        a, b, ovf = _run_both(d_cum, val, nbv, W)
-        assert not ovf
-        np.testing.assert_array_equal(a, b)
-
-
-def test_binned_deposit_u64_33bit(rng):
-    """33-bit side-channel deposits (u64 values) split across word pairs."""
-    d_cum, val, nbv = _rand_stream(rng, 2, 150, max_nbv=34, dtype=np.uint64)
-    W = int(d_cum.max() // 32) + 2
-    a, b, ovf = _run_both(d_cum, val, nbv, W)
-    assert not ovf
-    np.testing.assert_array_equal(a, b)
-
-
-def test_binned_deposit_span_overflow_detected(rng):
-    """A chunk spanning more than the window (pathological quotient run)
-    must raise the overflow flag so the caller takes the exact path."""
-    from zigflac_tpu.ops.pallas_deposit import CHUNK, WINDOW
-
-    n, s = 1, 2 * CHUNK
-    nb = np.full((n, s), 4, np.int32)
-    nb[0, 10] = (WINDOW + 4) * 32  # one giant field inside chunk 0
-    nbv = np.minimum(nb, 4)
-    d_cum = np.cumsum(nb, axis=1).astype(np.int32)
-    val = np.full((n, s), 9, np.uint32)
-    _, _, ovf = _run_both(d_cum, val, nbv, int(d_cum.max() // 32) + 2)
-    assert ovf
-
-
-def test_binned_deposit_word_budget_clamp(rng):
-    """Deposits beyond max_words clamp into slack; the in-budget prefix
-    stays identical to the segment-sum path (which drops them)."""
-    d_cum, val, nbv = _rand_stream(rng, 2, 300)
-    W = int(d_cum.max() // 32) // 2  # budget smaller than the stream needs
-    a, b, ovf = _run_both(d_cum, val, nbv, W)
-    assert not ovf
-    np.testing.assert_array_equal(a, b)
-
-
-def test_merged_deposit_matches_segsum(rng):
-    """The pair-merged production path (deposit_stream_binned) must match
-    the exact segment-sum deposits bit-for-bit, including merged values up
-    to 64 bits spanning three output words."""
-    import jax.numpy as jnp
-
-    from zigflac_tpu.ops.bitpack import deposit_words
-    from zigflac_tpu.ops.pallas_deposit import deposit_stream_binned
-
-    # widest pair: (max_nbv-1) + (max_nbv-1 + gap-1) must stay <= 64
-    for n, s, max_nbv, gap in [(3, 200, 20, 4), (2, 257, 29, 8), (1, 64, 31, 2)]:
-        d_cum, val, nbv = _rand_stream(
-            rng, n, s, max_nbv=max_nbv, gap=gap, dtype=np.uint64
-        )
-        W = int(d_cum.max() // 32) + 3
-        a = deposit_words(
-            jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv), W
-        )
-        b, ovf = deposit_stream_binned(
-            jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv), W,
-            interpret=True,
-        )
-        assert not bool(np.asarray(ovf))
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_merged_deposit_unmergeable_pair_flags_overflow(rng):
-    """A pair whose combined deposited span exceeds 64 bits (giant unary
-    run in the second field) must raise the overflow flag so the caller
-    takes the exact path."""
-    import jax.numpy as jnp
-
-    from zigflac_tpu.ops.pallas_deposit import deposit_stream_binned
-
-    n, s = 1, 8
-    nbv = np.full((n, s), 4, np.int32)
-    nb = nbv.copy()
-    nb[0, 3] = 70  # field 3 (odd partner of pair 1): 66 zeros + 4-bit value
-    d_cum = np.cumsum(nb, axis=1).astype(np.int32)
-    val = np.full((n, s), 9, np.uint64)
-    _, ovf = deposit_stream_binned(
-        jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv),
-        int(d_cum.max() // 32) + 3, interpret=True,
-    )
-    assert bool(np.asarray(ovf))
-
-
-def test_merged_deposit_masked_and_odd_columns(rng):
-    """Masked (nbv=0) partners merge as identities, and an odd column count
-    pads cleanly."""
-    import jax.numpy as jnp
-
-    from zigflac_tpu.ops.bitpack import deposit_words
-    from zigflac_tpu.ops.pallas_deposit import deposit_stream_binned
-
-    n, s = 2, 151  # odd
-    d_cum, val, nbv = _rand_stream(rng, n, s, max_nbv=18, dtype=np.uint64)
-    kill = rng.random((n, s)) < 0.4  # many masked columns
-    nbv = np.where(kill, 0, nbv)
-    val = np.where(kill, 0, val)
+def _mask_columns(rng, d_cum, val, nbv, p=0.4):
+    """Zero a fraction of the columns (nbv = nb = 0): masked partners must
+    merge as identities."""
+    n, s = nbv.shape
+    kill = rng.random((n, s)) < p
     nb = np.where(kill, 0, np.diff(np.concatenate(
         [np.zeros((n, 1), np.int32), d_cum], axis=1), axis=1))
-    d_cum = np.cumsum(nb, axis=1).astype(np.int32)
-    W = int(d_cum.max() // 32) + 3
-    a = deposit_words(jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv), W)
-    b, ovf = deposit_stream_binned(
-        jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv), W,
-        interpret=True,
-    )
-    assert not bool(np.asarray(ovf))
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    return (np.cumsum(nb, axis=1).astype(np.int32),
+            np.where(kill, 0, val), np.where(kill, 0, nbv))
 
 
-def test_windowed_deposit_matches_segsum(rng):
-    """The pure-XLA windowed path (production TPU default) must match the
-    exact segment-sum deposits bit-for-bit — merged values up to 64 bits,
-    masked columns, odd column counts, tiny and chunk-crossing streams."""
-    import jax.numpy as jnp
-
-    from zigflac_tpu.ops.bitpack import deposit_words, deposit_stream_windowed
-
-    for n, s, max_nbv, gap in [
-        (3, 200, 20, 4), (2, 257, 29, 8), (1, 64, 31, 2), (2, 301, 18, 3),
-    ]:
-        d_cum, val, nbv = _rand_stream(
-            rng, n, s, max_nbv=max_nbv, gap=gap, dtype=np.uint64
-        )
-        if s == 301:  # masked columns + odd count
-            kill = rng.random((n, s)) < 0.4
-            nbv = np.where(kill, 0, nbv)
-            val = np.where(kill, 0, val)
-            nb = np.where(kill, 0, np.diff(np.concatenate(
-                [np.zeros((n, 1), np.int32), d_cum], axis=1), axis=1))
-            d_cum = np.cumsum(nb, axis=1).astype(np.int32)
-        W = int(d_cum.max() // 32) + 3
-
-        import jax
-        from functools import partial
-
-        @partial(jax.jit, static_argnums=3)
-        def both(d, v, nv, w):
-            return (
-                deposit_words(d, v, nv, w),
-                *deposit_stream_windowed(d, v, nv, w),
-            )
-
-        a, b, ovf = both(
-            jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv), W
-        )
-        assert not bool(np.asarray(ovf))
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_windowed_deposit_overflow_flags(rng):
-    """Window out-span and unmergeable pairs must both raise the windowed
-    path's overflow flag (caller falls back to the exact path)."""
-    import jax.numpy as jnp
-
-    from zigflac_tpu.ops.bitpack import deposit_stream_windowed
-
-    # giant field inside a chunk -> window out-span
-    n, s = 1, 256
-    nb = np.full((n, s), 4, np.int32)
-    nb[0, 10] = 600 * 32
-    nbv = np.minimum(nb, 4)
-    d_cum = np.cumsum(nb, axis=1).astype(np.int32)
-    val = np.full((n, s), 9, np.uint64)
+def _windowed_vs_segsum(d_cum, val, nbv, W):
+    """(segsum words, windowed words, windowed overflow) from one jitted
+    program."""
     import jax
     from functools import partial
 
+    from zigflac_tpu.ops.bitpack import deposit_stream_windowed, deposit_words
+
+    @partial(jax.jit, static_argnums=3)
+    def both(d, v, nv, w):
+        return (
+            deposit_words(d, v, nv, w),
+            *deposit_stream_windowed(d, v, nv, w),
+        )
+
+    a, b, ovf = both(jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv), W)
+    return np.asarray(a), np.asarray(b), bool(np.asarray(ovf))
+
+
+@pytest.mark.parametrize(
+    "n,s,max_nbv,gap,masked",
+    [
+        (3, 200, 20, 4, False),
+        (2, 257, 29, 8, False),  # widest pairs: up to 64 merged bits
+        (1, 64, 31, 2, False),
+        (2, 301, 18, 3, True),   # masked columns + odd count
+        (2, 151, 18, 4, True),
+    ],
+)
+def test_windowed_deposit_matches_segsum(rng, n, s, max_nbv, gap, masked):
+    """The windowed path (pair-merged deposits) must match the exact
+    segment-sum deposits bit-for-bit — merged values up to 64 bits, masked
+    columns, odd column counts, tiny and chunk-crossing streams."""
+    d_cum, val, nbv = _rand_stream(
+        rng, n, s, max_nbv=max_nbv, gap=gap, dtype=np.uint64
+    )
+    if masked:
+        d_cum, val, nbv = _mask_columns(rng, d_cum, val, nbv)
+    W = int(d_cum.max() // 32) + 3
+    a, b, ovf = _windowed_vs_segsum(d_cum, val, nbv, W)
+    assert not ovf
+    np.testing.assert_array_equal(a, b)
+
+
+def test_windowed_deposit_u64_33bit(rng):
+    """33-bit side-channel deposits (u64 values, the depth-32 stereo side
+    plane) land identically through the windowed path and segment-sums.
+    Each 33-bit deposit's pair partner is <= 31 bits, so every pair fits
+    the 64-bit merge."""
+    n, s = 2, 150
+    nbv = rng.integers(0, 32, (n, s)).astype(np.int32)
+    nbv[:, : s // 2 : 2] = 33   # first half: 33-bit field leads its pair
+    nbv[:, s // 2 + 1 :: 2] = 33  # second half: 33-bit field trails
+    d_cum = np.cumsum(nbv, axis=1).astype(np.int32)
+    val = rng.integers(0, 1 << 33, (n, s), dtype=np.uint64)
+    val &= (np.uint64(1) << nbv.astype(np.uint64)) - np.uint64(1)
+    assert (val >= (1 << 32)).any()
+    W = int(d_cum.max() // 32) + 3
+    a, b, ovf = _windowed_vs_segsum(d_cum, val, nbv, W)
+    assert not ovf
+    np.testing.assert_array_equal(a, b)
+
+
+def test_windowed_deposit_word_budget_clamp(rng):
+    """Deposits beyond max_words clamp into slack rows; the in-budget
+    prefix stays identical to the segment-sum path (which drops them)."""
+    d_cum, val, nbv = _rand_stream(rng, 2, 300, dtype=np.uint64)
+    W = int(d_cum.max() // 32) // 2  # budget smaller than the stream needs
+    a, b, ovf = _windowed_vs_segsum(d_cum, val, nbv, W)
+    assert not ovf
+    assert a.shape == b.shape == (2, W)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["window_span", "unmergeable_pair"])
+def test_windowed_deposit_overflow_flags(case):
+    """Window out-span (a giant field inside a chunk) and an unmergeable
+    pair (>64-bit combined span: a long unary run in the second field) must
+    both raise the windowed path's overflow flag, so the caller falls back
+    to the exact path."""
+    import jax
+    from functools import partial
+
+    from zigflac_tpu.ops.bitpack import deposit_stream_windowed
+
+    n, s = 1, 256
+    nb = np.full((n, s), 4, np.int32)
+    if case == "window_span":
+        nb[0, 10] = 600 * 32
+    else:
+        nb[0, 3] = 70  # field 3 (odd partner of pair 1): 66 zeros + 4 bits
+    nbv = np.minimum(nb, 4)
+    d_cum = np.cumsum(nb, axis=1).astype(np.int32)
+    val = np.full((n, s), 9, np.uint64)
     win = partial(jax.jit, static_argnums=3)(deposit_stream_windowed)
     _, ovf = win(
         jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv),
         int(d_cum.max() // 32) + 3,
     )
     assert bool(np.asarray(ovf))
-    # unmergeable pair (>64-bit combined span)
-    nb = np.full((n, s), 4, np.int32)
-    nb[0, 3] = 70
-    nbv2 = np.minimum(nb, 4)
-    d_cum = np.cumsum(nb, axis=1).astype(np.int32)
-    _, ovf = win(
-        jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv2),
-        int(d_cum.max() // 32) + 3,
-    )
-    assert bool(np.asarray(ovf))
 
 
 def test_pack_frames_windowed_matches_segsum(rng):
-    """Full pack_frames with deposit='windowed' (the production TPU
+    """Full pack_frames with deposit='windowed' (the GPU's default
     deposit) is byte-identical to the segment-sum path on content forcing
     escapes / verbatim / constant / zero partitions."""
     import jax.numpy as jnp
@@ -303,50 +213,46 @@ def test_pack_frames_windowed_matches_segsum(rng):
     np.testing.assert_array_equal(np.asarray(wa), np.asarray(wb))
 
 
-def test_pack_frames_binned_matches_segsum(rng):
-    """Full pack_frames with deposit='binned' (interpret mode) is
-    byte-identical to the production segment-sum path."""
-    import jax.numpy as jnp
+def test_pack_frames_windowed_pair_depth32_matches_segsum(rng):
+    """pack_frames with deposit='windowed_pair' (the capacity ladder's
+    tier-1 windowed pass) at depth 32, where the planes are i64:
+    byte-identical to segment-sums, with no overflow flag on uncorrelated
+    channels (left/right coding keeps every field <= 32 bits). A frame
+    coded with the 33-bit side channel has adjacent 33-bit warmup samples
+    (66 bits) that cannot pair-merge: it flags overflow and takes the exact
+    path by design."""
+    import jax
 
-    from zigflac_tpu.models.pipeline import _encode_batch_compact  # noqa: F401
     from zigflac_tpu.ops.analyze import plan_frames
     from zigflac_tpu.ops.bitpack import max_frame_words, pack_frames
     from zigflac_tpu.ops.header import header_static
     from zigflac_tpu.utils.config import EncoderConfig
 
-    B, n = 512, 6
+    B, n = 256, 4
     cfg = EncoderConfig(block_size=B)
     t = np.arange(n * B)
-    x = np.clip(
-        6000 * np.sin(2 * np.pi * 440 * t / 44100)
-        + rng.normal(0, 50, t.size),
-        -32768, 32767,
-    ).astype(np.int32)
-    # mix in frames that force escapes / verbatim / all-zero partitions so
-    # the merged-param deposits (binned) cover every partition shape
-    x[0:B] = 0                                       # constant/silence
-    x[B : 2 * B] = rng.integers(-32768, 32768, B)    # noise -> escapes
-    x[2 * B : 2 * B + 200] = 0                       # zero partitions
-    frames = np.stack(
-        [x.reshape(n, B), (x // 3).reshape(n, B)], axis=1
-    )
+    left = 2.0**29 * np.sin(2 * np.pi * 440 * t / 44100)
+    right = 2.0**28 * np.sin(2 * np.pi * 97 * t / 44100 + 1.0)
+    x = np.stack([left, right]) + rng.normal(0, 2.0**12, (2, t.size))
+    frames = x.astype(np.int64).reshape(2, n, B).transpose(1, 0, 2)
+    frames = frames.astype(np.int32)
     fns = jnp.arange(n, dtype=jnp.int64)
-    hs = header_static(B, 44100, 16)
-    W = max_frame_words(B, 2, 16)
+    hs = header_static(B, 44100, 32)
+    W = max_frame_words(B, 2, 32)
 
-    import jax
-
-    @jax.jit  # one cacheable program (eager tracing costs ~10 s/run)
+    @jax.jit
     def both(fr, fnum):
-        plan = plan_frames(fr, 16, cfg)
-        wa, ta, _ = pack_frames(plan, fnum, hs, B, cfg.max_rice_order, W)
+        plan = plan_frames(fr, 32, cfg)
+        wa, ta, _ = pack_frames(plan, fnum, hs, B, cfg.max_rice_order, W,
+                                depth=32)
         wb, tb, ovf = pack_frames(
             plan, fnum, hs, B, cfg.max_rice_order, W,
-            deposit="binned", interpret=True,
+            deposit="windowed_pair", depth=32,
         )
-        return wa, ta, wb, tb, ovf
+        return plan.planes.dtype == jnp.int64, wa, ta, wb, tb, ovf
 
-    wa, ta, wb, tb, ovf = both(jnp.asarray(frames), fns)
+    wide, wa, ta, wb, tb, ovf = both(jnp.asarray(frames), fns)
+    assert bool(wide)
     assert not bool(np.asarray(ovf))
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
     np.testing.assert_array_equal(np.asarray(wa), np.asarray(wb))
@@ -477,3 +383,38 @@ def test_windowed_quad_unmergeable_flags_overflow(rng):
     _, ovf = win(jnp.asarray(d_cum), jnp.asarray(val), jnp.asarray(nbv2),
                  int(d_cum.max() // 32) + 3)
     assert bool(np.asarray(ovf))
+
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu", "rocm"])
+def test_default_deposit_per_platform(monkeypatch, platform):
+    """The deposit path follows the default device's platform through the
+    measured table; a platform without a measured choice is an error, not
+    a silent default."""
+    import jax
+
+    from zigflac_tpu.models import pipeline
+
+    class _Dev:
+        pass
+
+    dev = _Dev()
+    dev.platform = platform
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: [dev])
+    if platform in pipeline.DEPOSIT_BY_PLATFORM:
+        assert pipeline._default_deposit() == (
+            pipeline.DEPOSIT_BY_PLATFORM[platform]
+        )
+        assert pipeline._default_deposit() in ("segsum", "windowed")
+    else:
+        with pytest.raises(RuntimeError, match="no deposit path"):
+            pipeline._default_deposit()
+    assert pipeline.DEPOSIT_BY_PLATFORM["cpu"] == "segsum"
+
+
+def test_pack_frames_rejects_unknown_deposit():
+    """The retired 'binned' mode (and any other name) is refused before
+    any tracing, not silently mapped to another path."""
+    from zigflac_tpu.ops.bitpack import pack_frames
+
+    with pytest.raises(ValueError, match="unknown deposit mode 'binned'"):
+        pack_frames(None, None, None, 4096, 8, 128, deposit="binned")

@@ -118,7 +118,7 @@ def test_sharded_overflow_stays_sharded(rng, mesh):
 
 
 def test_sharded_ragged_batch_with_partial_overflow(rng, mesh):
-    """A production-shaped worst case on the mesh (VERDICT r4 item 6): a
+    """A production-shaped worst case on the mesh: a
     frame count NOT divisible by the mesh size (exercising the pad at
     DevicePipeline.dispatch_batch) where only SOME shards carry
     incompressible rows — those shards alone must re-encode through the

@@ -174,24 +174,44 @@ def test_utf8_frame_number_roundtrip():
 
 
 def test_cumsum_bits_exact_wide_symbols():
-    """_cumsum_bits_exact must be exact for symbol widths ABOVE 256 bits
-    (a long unary quotient on one impulsive residual). The MXU form runs
-    its dot at Precision.HIGHEST because TPU default precision truncates
-    f32 operands to bfloat16 (8 mantissa bits) — widths like 513 would
-    silently round, shifting every later deposit offset. On the
-    CPU-forced suite this pins the blocked-matmul plumbing; on real TPU
-    the same function runs inside every deposit program."""
+    """_cumsum_bits_exact must be exact for wide symbol widths (a long
+    unary quotient on one impulsive residual). It runs its dot at
+    Precision.HIGHEST because at default precision a GPU may run the f32
+    matmul in TF32 (11 significant bits), which rounds widths such as 2049
+    or 4001 and shifts every later deposit offset; bfloat16 operands
+    (8 significant bits) would already round 257 and 513. CPU dots are
+    exact, so on the CPU suite this pins the blocked-matmul plumbing; the
+    gpu-marked tests run the same function on the card."""
     import jax.numpy as jnp
     from zigflac_tpu.ops.bitpack import _cumsum_bits_exact
 
     rng = np.random.default_rng(123)
-    nb = rng.integers(0, 20, size=(4, 1000)).astype(np.int32)
-    # odd widths straddling bf16-representability limits, off-lane-grid
+    nb = rng.integers(0, 20, size=(6, 1000)).astype(np.int32)
+    # odd widths straddling bf16 and TF32 representability, off-lane-grid
     nb[0, 37] = 513
     nb[1, 129] = 257
     nb[2, 500] = 4095
     nb[3, 999] = 100003
+    nb[4, 127] = 2049
+    nb[5, 128] = 4001
     got = np.asarray(_cumsum_bits_exact(jnp.asarray(nb)))
     want = np.cumsum(nb, axis=1, dtype=np.int64)
     assert want.max() < (1 << 24)
     np.testing.assert_array_equal(got, want.astype(np.int32))
+
+
+def test_cumsum_bits_exact_requests_highest_precision():
+    """The prefix-sum matmul is lowered with precision HIGHEST on both
+    operands: the property that keeps it exact where the backend would
+    otherwise use TF32 (widths above 2048 bits) or bf16."""
+    import jax
+    import jax.numpy as jnp
+    from zigflac_tpu.ops.bitpack import _cumsum_bits_exact
+
+    text = jax.jit(_cumsum_bits_exact).lower(
+        jnp.zeros((2, 300), jnp.int32)
+    ).as_text()
+    dots = [line for line in text.splitlines() if "dot_general" in line]
+    assert dots, "the prefix sum no longer lowers to a matmul"
+    for line in dots:
+        assert "precision = [HIGHEST, HIGHEST]" in line, line

@@ -1,4 +1,4 @@
-"""Golden-output regression corpus (VERDICT r4 item 7).
+"""Golden-output regression corpus.
 
 The environment has no Zig toolchain, so a direct comparison against the
 compiled reference binary has never run (ORACLE_AUDIT.md); the transitive

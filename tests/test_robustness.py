@@ -222,27 +222,87 @@ def test_native_synthesize_validates_geometry():
         _n.synthesize(vb, qb, sb, cb, n, C, B + 1)
 
 
-def test_deposit_tunables_validated():
-    """Env-overridden kernel tunables are clamped/aligned at import: a
-    WINDOW that would misalign the 128-lane store window rounds up."""
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_cpu_python(code, **env_over):
+    """Run ``code`` in a fresh CPU-only interpreter at the repo root."""
     import subprocess
     import sys
 
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    env.update(env_over)
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=_REPO, timeout=300,
+    )
+
+
+def test_compile_cache_follows_env_dir(tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the package keeps its persistent
+    compile cache there and nowhere else: a compiled program lands in it."""
+    cache = tmp_path / "cc"
     code = (
-        "from zigflac_tpu.ops import pallas_deposit as d\n"
-        "assert d.WINDOW % 128 == 0, d.WINDOW\n"
-        "assert d._STORE % 128 == 0, d._STORE\n"
-        "assert d.WINDOW >= 200, d.WINDOW\n"
-        "print('ok')\n"
+        "import jax, jax.numpy as jnp, zigflac_tpu\n"
+        "print(zigflac_tpu.CACHE_DIR)\n"
+        "print(jax.config.jax_compilation_cache_dir)\n"
+        "jax.config.update('jax_persistent_cache_min_compile_time_secs', 0)\n"
+        "jax.jit(lambda x: x * 3 + 1)(jnp.arange(8)).block_until_ready()\n"
     )
-    env = dict(os.environ, ZF_DEP_WINDOW="200", ZF_DEP_CHUNK="0",
-               JAX_PLATFORMS="cpu")
-    r = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
-        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    )
+    r = _run_cpu_python(code, JAX_COMPILATION_CACHE_DIR=str(cache))
     assert r.returncode == 0, r.stderr
-    assert "ok" in r.stdout
+    assert r.stdout.split() == [str(cache), str(cache)]
+    assert any(cache.iterdir()), "nothing was cached in the env directory"
+
+
+def test_compile_cache_defaults_to_checkout():
+    """Without JAX_COMPILATION_CACHE_DIR the cache is the checkout's fixed
+    .jax_cache directory (git-ignored), never a temporary path."""
+    code = (
+        "import jax, zigflac_tpu\n"
+        "print(zigflac_tpu.CACHE_DIR)\n"
+        "print(jax.config.jax_compilation_cache_dir)\n"
+    )
+    r = _run_cpu_python(code)
+    assert r.returncode == 0, r.stderr
+    want = os.path.join(_REPO, ".jax_cache")
+    assert r.stdout.split() == [want, want]
+
+
+def test_backend_auto_never_falls_back_to_golden(rng, monkeypatch):
+    """backend='auto' means the device pipeline: when that pipeline cannot
+    be imported, encoding raises instead of quietly running the scalar
+    host oracle."""
+    import sys
+
+    samples = make_signal(rng, 4096 + 300, channels=2, depth=16, kind="mixed")
+    buf = io.BytesIO()
+    write_wav(buf, samples, 44100, 16)
+    wav = buf.getvalue()
+    golden = encode_wav_bytes(wav, backend="golden")
+    monkeypatch.setitem(sys.modules, "zigflac_tpu.models.pipeline", None)
+    with pytest.raises(ImportError):
+        encode_wav_bytes(wav)
+    with pytest.raises(ImportError):
+        encode_wav_bytes(wav, backend="device")
+    assert encode_wav_bytes(wav, backend="golden") == golden
+
+
+def test_chip_smoke_refuses_cpu():
+    """chip_smoke.py pins JAX to the CUDA platform: on a machine with no
+    card (JAX_PLATFORMS=cpu asked for) it exits non-zero and never prints
+    an ``"ok": true`` result line."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run(
+        [sys.executable, os.path.join(_REPO, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, cwd=_REPO, timeout=300,
+    )
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
 
 
 def test_cli_decode_forwards_backend(rng, tmp_path, monkeypatch):

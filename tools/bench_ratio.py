@@ -1,5 +1,5 @@
-"""Compression-ratio benchmark vs canonical libFLAC presets (VERDICT r4
-item 4 / BASELINE quality axis).
+"""Compression-ratio benchmark vs canonical libFLAC presets (the BASELINE
+quality axis).
 
 Encodes three content classes (tonal+noise music-like, AR-filtered
 speech-like, dense music-like) with this framework's fixed and LPC modes

@@ -1,5 +1,5 @@
-"""Dump the compiled TPU HLO of the production encode program to a file,
-for grepping layout copies / fusion structure (CLAUDE.md layout traps).
+"""Dump the compiled HLO of the production encode program (on JAX's
+default device) to a file, for grepping layout copies / fusion structure.
 
 Usage: python tools/dump_hlo.py [--mode fixed|lpc] [--out /tmp/hlo.txt]
 """

@@ -1,8 +1,8 @@
-"""A/B the aggregate-u32 rice-sweep proof on the real TPU (one process).
+"""A/B the aggregate-u32 rice-sweep proof on the accelerator (one process).
 
 Variant A = head (agg_proven_rows: the 16-bit fixed rows sweep every rice
 level in u32 by the argmin aggregate bound — no u64 leg, no detector).
-Variant B = the r4 behavior, reproduced by stripping the agg kwarg before
+Variant B = the sweep without the proof, reproduced by stripping the agg kwarg before
 rice_estimate so the proof never engages. Both variants compile the full
 production compact program (fixed AND lpc configs) in this process and
 interleave N=10-execution measurements A/B/A/B (CLAUDE.md: numbers from

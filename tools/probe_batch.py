@@ -1,10 +1,9 @@
-"""Device-only throughput vs batch size on the real TPU.
+"""Device-only throughput vs batch size on the accelerator.
 
 Measures the production compact encode program (16-bit/44.1 kHz stereo,
 tier 0) at one or more frame-batch sizes, N=10 executions amortized
-against one closing fetch (see CLAUDE.md relay hazards). Used to size
-models/pipeline.DEFAULT_BATCH: ~2.5 ms of the 12 ms round-3 batch wall
-was non-op overhead, so larger buckets amortize it.
+against one closing fetch. Sizes models/pipeline.DEFAULT_BATCH: per-batch
+overhead that is not device work amortizes over larger buckets.
 
 Usage: python tools/probe_batch.py [sizes...]   (default: 1024 2048)
 """

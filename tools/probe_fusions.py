@@ -1,4 +1,4 @@
-"""Per-fusion time attribution of the production encode program (real TPU).
+"""Per-fusion time attribution of the production encode program (GPU).
 
 Runs the full production batch program under jax.profiler.trace and prints
 the top-K device ops by total self time, with their HLO op names (which
@@ -11,6 +11,7 @@ import glob
 import gzip
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -23,6 +24,7 @@ from dataclasses import replace
 
 from zigflac_tpu.models.pipeline import _compiled_encode_compact
 from zigflac_tpu.utils.config import EncoderConfig
+from peaks import hbm_peak_gbps
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--mode", default="fixed", choices=["fixed", "lpc"])
@@ -51,8 +53,11 @@ out = fn(batch, fns)
 jax.block_until_ready(out)
 np.asarray(out[1])
 
-trace_dir = f"/tmp/zf_trace_{args.mode}"
-os.system(f"rm -rf {trace_dir}")
+trace_dir = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "build", "traces", f"zf_trace_{args.mode}",
+)
+shutil.rmtree(trace_dir, ignore_errors=True)
 with jax.profiler.trace(trace_dir):
     for _ in range(args.reps):
         out = fn(batch, fns)
@@ -83,8 +88,9 @@ for e in events:
     d[2] += float(a.get("bytes_accessed", 0))
 tot_ms = sum(v[0] for v in agg.values()) / args.reps
 tot_gb = sum(v[2] for v in agg.values()) / args.reps / 1e9
+peak = hbm_peak_gbps(jax.devices()[0].device_kind)
 print(f"device op time {tot_ms:.2f} ms/rep, bytes {tot_gb:.2f} GB/rep "
-      f"(avg {tot_gb/tot_ms*1e3:.0f} GB/s vs 819 peak), "
+      f"(avg {tot_gb/tot_ms*1e3:.0f} GB/s vs {peak:.0f} peak), "
       f"{len(agg)} distinct ops, {args.reps} reps")
 rows = sorted(agg.items(), key=lambda kv: -kv[1][0])[: args.top]
 for name, (dur, cnt, bts, long_name) in rows:

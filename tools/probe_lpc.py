@@ -1,11 +1,10 @@
-"""Per-stage timing of the LPC analysis path on the real TPU.
+"""Per-stage timing of the LPC analysis path on the accelerator.
 
-LPC mode measures ~2x fixed mode's batch time (24.9 vs 12.8 ms at the
-r3-cont. head); this probe attributes the extra cost across the LPC
+Attributes LPC mode's extra cost over fixed mode across the LPC
 pipeline: lag sums -> integer Levinson + candidate selection -> LPC
 residuals -> the extra Rice sweep. Cumulative jitted programs, each
 ending in a tiny i32 reduction; N executions amortized against one
-closing fetch (CLAUDE.md relay hazards).
+closing fetch.
 """
 import sys, time
 sys.path.insert(0, __import__("os").path.dirname(__import__("os").path.dirname(__import__("os").path.abspath(__file__))))

@@ -1,9 +1,9 @@
-"""A/B the two lpc_residuals forms in ONE process on the real TPU.
+"""A/B the two lpc_residuals forms in ONE process on the accelerator.
 
 Form A (i64 signal copy): s = planes.astype(i64) once, taps pad/shift s.
 Form B (narrow taps): taps pad/shift the native i32 planes and widen
-inside the multiply. Cross-run bench numbers are not comparable on this
-relay (CLAUDE.md) — this probe times A/B/A back-to-back.
+inside the multiply. Cross-run numbers are not comparable (CLAUDE.md) —
+this probe times A/B/A back-to-back.
 """
 import sys, time
 import os

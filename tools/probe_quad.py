@@ -1,7 +1,7 @@
-"""A/B: quad-merged vs pair-merged windowed deposits on the real TPU.
+"""A/B: quad-merged vs pair-merged windowed deposits on the accelerator.
 
 Alternates the two variants back-to-back in one process (the only valid
-comparison on this host — see CLAUDE.md variance note), full production
+comparison — see CLAUDE.md), full production
 program (16-bit stereo, tier 0, batch 1024), N=10 executions amortized.
 """
 import os

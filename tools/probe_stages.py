@@ -1,6 +1,6 @@
-"""Serial per-stage timing of the compact encode program on the real TPU.
+"""Serial per-stage timing of the compact encode program on the accelerator.
 
-Run ALONE (no concurrent TPU programs). Each probe is its own jitted
+Run ALONE (no other process on the card). Each probe is its own jitted
 program ending in a tiny i32 reduction so the d2h fetch is negligible;
 N executions amortized against one closing fetch.
 """

@@ -1,19 +1,19 @@
-"""Bytes-moved roofline of the production encode programs on the real TPU.
+"""Bytes-moved roofline of the production encode programs on the GPU.
 
 For each cumulative stage prefix of the PRODUCTION batch program
 (models/pipeline._encode_batch_compact parameters: speculate=True,
 deposit="windowed", tier-0 word budget) in both fixed and LPC modes:
 
-  * measured ms/batch (N executions amortized against one closing fetch —
-    CLAUDE.md relay rules; run ALONE, no concurrent CPU load)
+  * measured ms/batch (best of 3 windows of N executions, each ending in
+    block_until_ready; run ALONE, no concurrent load)
   * XLA cost-analysis "bytes accessed" (HBM traffic as the compiler
     accounts it: every buffer read + written across fusion boundaries)
-  * flops, implied GB/s, and % of the v5e HBM peak (819 GB/s)
+  * flops, implied GB/s, and % of the device's published HBM peak
+    (tools/peaks.py, keyed by device_kind; an unknown device is an error)
 
 The stage DELTAS attribute traffic/time to plan / pack / crc / compact;
 prefix programs fuse slightly differently than the full program at the cut
-points, so deltas are approximate — the FULL row is exact and is the
-roofline number BENCH.md quotes.
+points, so deltas are approximate — the FULL row is exact.
 
 Usage: python tools/roofline.py [--mode fixed|lpc|both] [--no-time]
 """
@@ -38,8 +38,8 @@ from zigflac_tpu.ops.bitpack import (
 from zigflac_tpu.ops.crc16 import crc16_words
 from zigflac_tpu.ops.header import header_static
 from zigflac_tpu.utils.config import EncoderConfig
+from peaks import hbm_peak_gbps
 
-HBM_GBPS = 819.0  # v5e HBM peak
 B, n = 4096, 1024
 rate, depth = 44100, 16
 
@@ -143,13 +143,14 @@ def timeit(fn, batch, fns, N=10, reps=3):
         t0 = time.perf_counter()
         for _ in range(N):
             out = fn(batch, fns)
-        np.asarray(out)
+        jax.block_until_ready(out)
         best = min(best, (time.perf_counter() - t0) / N)
     return best
 
 
 def run_mode(name, cfg, do_time):
     print(f"\n== {name} mode ==", flush=True)
+    HBM_GBPS = hbm_peak_gbps(jax.devices()[0].device_kind)
     batch = jnp.asarray(frames_np)
     fns = jnp.arange(n, dtype=jnp.int64)
     rows = []

@@ -5,7 +5,7 @@
 * CRC-16/UMTS  (poly 0x18005, init 0, non-reflected, xorout 0) — whole-frame
   checksum (reference: libFLAC/Crc16.zig).
 
-The reference accelerates CRC-16 with PCLMULQDQ folding; on TPU we instead use
+The reference accelerates CRC-16 with PCLMULQDQ folding; on the device we use
 the GF(2) linearity of CRC: the CRC of a message is the XOR of per-byte
 contributions ``byte(x) * x^(8*dist_from_end + 16) mod G(x)``, which
 vectorizes over every byte of every frame at once (see ops/crc16.py). This

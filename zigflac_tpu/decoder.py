@@ -562,7 +562,7 @@ def decode_file(
             total = 0
             nb = (info.bit_depth + 7) // 8
             # MT path: a bigger per-call budget amortizes the per-batch
-            # sync scan + thread spawn (ADVICE r4); bounded so the batch's
+            # sync scan + thread spawn; bounded so the batch's
             # PCM buffer stays ~<=64 MB at the nominal 4096 block
             batch_frames = _BATCH_FRAMES
             if mt:

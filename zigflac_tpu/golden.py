@@ -2,7 +2,7 @@
 
 A direct, scalar/numpy re-statement of the reference encoder's *semantics*
 (not its code): every tie-break, wrapping-arithmetic detail, and quirk is
-reproduced so the TPU pipeline (ops/, models/encoder.py) can be tested
+reproduced so the device pipeline (ops/, models/encoder.py) can be tested
 byte-for-byte against it:
 
 * fixed-order search by min sum-of-abs-residuals, first-min argmin, wide-mode

@@ -7,7 +7,8 @@ the output (the reference seeks back; we assemble in memory / write last).
 
 Two interchangeable frame backends:
 
-* ``device`` — the TPU pipeline (models/pipeline.py): frames are batched
+* ``device`` — the accelerator pipeline (models/pipeline.py), and what
+  ``auto`` means: frames are batched
   ``[n_frames, channels, block_size]`` and every decision + the bitstream
   packing runs as XLA ops on the accelerator.
 * ``golden`` — the scalar host oracle (golden.py), used for tests, tiny
@@ -54,7 +55,7 @@ class Encoder:
         self.config = config
         self.bit_depth = bit_depth
         if backend == "auto":
-            backend = "device" if _device_available() else "golden"
+            backend = "device"
         if backend not in ("device", "golden"):
             raise ValueError(f"unknown backend {backend}")
         self.backend = backend
@@ -258,15 +259,6 @@ def _tail_on_device(rem: int) -> bool:
     from .pipeline import TAIL_DEVICE_MIN, device_tail_enabled
 
     return rem >= TAIL_DEVICE_MIN and device_tail_enabled()
-
-
-def _device_available() -> bool:
-    try:
-        from . import pipeline  # noqa: F401
-
-        return True
-    except ImportError:
-        return False
 
 
 # Shared with decoder._verify_md5 so encoder and verifier can never diverge

@@ -4,7 +4,7 @@ The accelerator owns the compute path; this module covers the serial host
 runtime the reference implements natively: MD5 over raw PCM bytes, CRC
 tables, WAV de-interleave, and frame-stream assembly. Falls back to
 hashlib/numpy implementations when the extension isn't built
-(``python native/setup.py build_ext --inplace``).
+(``python native/build.py``); ``HAVE_NATIVE`` says which is in use.
 """
 
 from __future__ import annotations

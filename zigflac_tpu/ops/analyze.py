@@ -30,9 +30,9 @@ import numpy as np
 from ..utils.config import EncoderConfig, MAX_FIXED_ORDER, MAX_RICE_PARAM_4BIT
 
 # numpy scalar, NOT jnp: a module-level jnp constant is a concrete device
-# array, and jit CAPTURES it instead of inlining the literal — measured
-# ~30 ms per program execution on TPU everywhere it was used (the Rice
-# partition-order clamp alone). np scalars inline at trace time (0.08 ms).
+# array, and jit CAPTURES it as a program input instead of inlining the
+# literal, which costs a transfer on every execution. np scalars inline at
+# trace time.
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 # res_k[i] = sum_m BINOM[k][m] * s[i-m]  (k-th difference; matches the
@@ -102,8 +102,8 @@ def shift_right_zero(x: jnp.ndarray, m: int) -> jnp.ndarray:
 
 
 def _tree_or(x: jnp.ndarray) -> jnp.ndarray:
-    """OR-reduce the last axis with a halving tree (elementwise, VPU-friendly
-    — custom lax.reduce computations can serialize on TPU)."""
+    """OR-reduce the last axis with a halving tree of elementwise ORs
+    (a custom lax.reduce computation can lower to a serial loop)."""
     n = x.shape[-1]
     while n > 1:
         if n % 2:
@@ -382,8 +382,8 @@ def rice_estimate(
             method = (k_lvl > MAX_RICE_PARAM_4BIT).any(axis=-2).astype(jnp.int32)
         else:
             method = jnp.zeros(batch_shape, jnp.int32)
-        # tree-sum the partition costs (halving strided adds — minor-axis
-        # u64 reduces can serialize on TPU)
+        # tree-sum the partition costs (halving strided adds instead of a
+        # minor-axis u64 reduce)
         bc_total = best_bc[..., start : start + nparts, :]
         m = nparts
         while m > 1:
@@ -446,12 +446,10 @@ def analyze_planes(
     reference passes the raw depth to chooseSubframeEncoding).
 
     Multi-dim batches are FLATTENED to one axis for the whole analysis and
-    unflattened at exit: with a 3D [P, N, X] working set, XLA's TPU layout
-    assignment shuffles the P axis through the layouts ({2,0,1} copies,
-    half-empty (4,128) sublane tiles, serialized kLoop fusions — measured
-    ~2 ms per 1024-frame batch); flat [P*N, X] tensors stay in natural
-    {1,0} layouts end to end. The boundary reshapes merge/split leading
-    axes only, so they are free.
+    unflattened at exit: with a 3D [P, N, X] working set, XLA's layout
+    assignment can shuffle the P axis through transposing copies; flat
+    [P*N, X] tensors stay in natural {1,0} layouts end to end. The
+    boundary reshapes merge/split leading axes only, so they are free.
     """
     batch_shape = planes.shape[:-1]
     if len(batch_shape) > 1:
@@ -557,8 +555,8 @@ def analyze_planes(
             # ONE merged sweep over [fixed; lpc] rows (concatenated on the
             # batch-minor axis): the zigzag + pyramid + k-sweep + level
             # selection run as half the fusions of two separate calls —
-            # the LPC program is op-sequencing-bound, not byte-bound
-            # (BENCH.md r4 roofline). Row results are bit-identical to
+            # fewer ops matter where the LPC program is bound by op
+            # count rather than bytes. Row results are bit-identical to
             # separate calls: both row groups share the same column split
             # (16-bit: spec_po=3 == the fixed rows' proof cut; the
             # detector covers every unproven u32 column, and provably-safe
@@ -652,10 +650,9 @@ class FrameWirePlan(NamedTuple):
     Arrays are WIRE-MAJOR [W, N, ...] (``channels_code`` alone is [N]):
     the whole analysis runs plane-major so every per-plane scalar tensor
     is [P, N] with the frame batch on the MINOR axis. Batch-minor [N, P]
-    scalars make XLA's TPU layout assignment transpose them ({0,1,2}
-    layouts, lanes = frames) and that layout back-propagates into the big
-    [.., B] tensors, serializing the analysis fusions (measured ~4 ms of
-    a 1024-frame batch in transpose copies + serialized kLoop fusions).
+    scalars can make XLA's layout assignment transpose them, and that
+    layout back-propagates into the big [.., B] tensors as transpose
+    copies.
     ``planes`` is int64 (covers the 33-bit side channel), ``sample_size``
     is per wire channel per frame (depth or depth+1 for side planes).
     """
@@ -725,8 +722,8 @@ def plan_frames_stereo(
 
     # The four planes ride through the analysis FLAT on one [4n, B] batch
     # axis (plane-major: rows [k*n, (k+1)*n) are plane k). A [4, n, B]
-    # stack costs two full relayout copies at the analysis boundary
-    # (measured 0.19 ms/1024-frame batch, r5): the packer-facing stack
+    # stack costs two full relayout copies at the analysis boundary:
+    # the packer-facing stack
     # materializes batch-minor {1,2,0}, analyze_planes' flatten transposes
     # it to sample-minor {2,1,0}, and the residual unflatten transposes
     # back. Flat concat + major-axis row slices are layout-free both ways;
@@ -788,8 +785,8 @@ def plan_frames_stereo(
     ch_type = jnp.argmin(sums, axis=0).astype(jnp.int32)  # first-min, [n]
 
     # wire-channel planes per mode (L,R,M,S = 0,1,2,3): wire0 = [L,L,S,M],
-    # wire1 = [R,S,R,S]. Elementwise selects, not gathers — per-element
-    # gathers over the big [4n, B] tensors lower poorly on TPU.
+    # wire1 = [R,S,R,S]. Elementwise selects, not per-element gathers
+    # over the big [4n, B] tensors.
     def gather_ch(x):
         ct = ch_type.reshape(n, *([1] * (x.ndim - 1)))
         w0 = jnp.where(

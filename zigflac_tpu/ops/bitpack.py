@@ -38,15 +38,17 @@ class SymbolBlock(NamedTuple):
 
 
 # Compacted frames start on ALIGN_W-word (512-byte) boundaries: the stream
-# compaction gather then moves whole 128-word rows — one full lane tile
-# each, so the [rows, ALIGN_W] gather operand needs no relayout and the row
-# count is 128x smaller than per-word (measured: the 8-word variant spent
-# ~2.9 ms/1024-frame batch in a reshape + {0,1} copy + gather; 128 words
-# runs the same region in ~0.7 ms). Cost: <=508 pad bytes per frame of
-# device memory and d2h volume (~2.5% for typical 10 KB frames) — the pad
-# never reaches the FLAC bytes (the host drops it during assembly, and the
-# capacity ladder's slack term scales with ALIGN_W).
+# compaction gather then moves whole 128-word rows, so the [rows, ALIGN_W]
+# gather operand needs no relayout and the row count is 128x smaller than
+# per-word. Cost: <=508 pad bytes per frame of device memory and d2h volume
+# (~2.5% for typical 10 KB frames) — the pad never reaches the FLAC bytes
+# (the host drops it during assembly, and the capacity ladder's slack term
+# scales with ALIGN_W).
 ALIGN_W = 128
+
+# pack_frames' deposit paths: exact segment-sums, and windowed binning with
+# quad (depth <= 16) or pair merging / pair merging only
+DEPOSIT_MODES = ("segsum", "windowed", "windowed_pair")
 
 
 def _u64(x) -> jnp.ndarray:
@@ -181,7 +183,7 @@ def channel_symbols(
     pos_levels = _or_pyramid(posmag, po_top)
     or_levels = _or_pyramid(residuals, po_top)
     # select the chosen partition order's level with a where-chain (a 9-way
-    # take_along_axis lowers as per-element gathers on TPU)
+    # take_along_axis would lower as per-element gathers)
     res_max = _pad256(pos_levels[0])
     or_all = _pad256(or_levels[0])
     for po in range(1, po_top + 1):
@@ -213,9 +215,8 @@ def channel_symbols(
     # Distribute per-partition values to per-sample lanes without gathers OR
     # scatters: the partition order takes only po_top+1 values, and for each
     # the distribution is a STATIC repeat of the first 2^po packed columns —
-    # select among the broadcasts with a where-chain. (The previous
-    # boundary-scatter + cumsum formulation serialized at ~4 ms per scatter
-    # on TPU — 4 scatters per stereo batch ≈ the whole symbols stage.)
+    # select among the broadcasts with a where-chain, which needs no
+    # boundary-scatter + cumsum pass per partition order.
     packed256 = (
         params_i
         | (eff_param256 << 5)
@@ -333,9 +334,9 @@ def deposit_words(
     max_words: int,
 ) -> jnp.ndarray:
     """Exact per-element deposit path (no window-span limit): two sorted
-    segment-sums per stream. XLA serializes the scatters at ~16 ns/element,
-    so this is the fallback for streams whose chunks out-span the Pallas
-    window (pallas_deposit.deposit_words_binned is the fast path)."""
+    segment-sums per stream. Always exact, so it is also the capacity
+    ladder's fallback for streams whose chunks out-span the windowed
+    path's window (deposit_stream_windowed)."""
     w0, hi, lo = _split_hi_lo(d_cum, val, nbv)
 
     num_segments = max_words + 1
@@ -429,26 +430,28 @@ def header_symbols(
 
 def _cumsum_bits_exact(nb: jnp.ndarray) -> jnp.ndarray:
     """Exact i32 prefix sum of per-symbol bit widths [N, S] via blocked
-    lower-triangular f32 matmuls on the MXU.
+    upper-triangular f32 matmuls (one matmul plus a tiny per-block offset
+    cumsum, instead of XLA's scan lowering of jnp.cumsum).
 
-    XLA lowers jnp.cumsum to a reduce_window scan that measured 0.33
-    ms/batch at 222 GB/s on v5e; the matmul form is one MXU pass plus a
-    tiny per-block offset cumsum. EXACT because every value is a
-    non-negative integer and every partial sum is bounded by a frame's
-    total bit count (< 2^19 even for depth-32 stereo verbatim at block
-    32768, far under f32's 2^24 exact-integer range), so each f32
-    product/add is an exactly-representable integer. Callers gate on a
-    static frame-bit bound and fall back to jnp.cumsum past 2^24.
+    EXACT because every value is a non-negative integer and every partial
+    sum is bounded by a frame's total bit count (< 2^19 even for depth-32
+    stereo verbatim at block 32768, far under f32's 2^24 exact-integer
+    range), so each f32 product/add is an exactly-representable integer.
+    Callers gate on a static frame-bit bound and fall back to jnp.cumsum
+    past 2^24.
 
-    Precision note: the dot MUST run at Precision.HIGHEST. TPU default
-    matmul precision truncates f32 operands to bfloat16 (8 mantissa
-    bits), which rounds any single symbol width above 256 bits — a
-    legitimate case (one impulsive residual can carry a unary quotient
-    of hundreds of bits while the partition still prefers Rice over
-    escape), and one the CPU-forced test suite can never catch because
-    CPU f32 dots are exact. HIGHEST (bf16_6x) splits each operand into
-    three bf16 terms; every split term, partial product (tri is 0/1),
-    and f32 partial sum is then an exact integer < 2^24."""
+    Precision note: the dot MUST run at Precision.HIGHEST, which on the
+    GPU means true float32 arithmetic. At DEFAULT precision XLA may run an
+    f32 matmul in TF32 on the tensor cores, which keeps 10 mantissa bits
+    (11 significant bits): every symbol width above 2048 that is not a
+    multiple of the rounding step (e.g. 2049, 4001) would round, shifting
+    every later deposit offset and corrupting the frame. Such widths are
+    legitimate — one impulsive residual can carry a unary quotient of
+    thousands of bits while its partition still prefers Rice over escape —
+    and the CPU suite cannot see the rounding because CPU f32 dots are
+    exact; the card-only tests and chip_smoke.py's wide-symbol phase do.
+    With HIGHEST every operand (width or 0/1), product and partial sum is
+    an exact integer < 2^24."""
     n, s = nb.shape
     blk = 128
     sp = -(-s // blk) * blk
@@ -513,7 +516,7 @@ def frame_symbol_stream(
     nb = jnp.concatenate(nb_parts, axis=1)
     # static worst-case frame bits: every wire subframe at its verbatim
     # ceiling (33-bit samples + headers), generously padded. Under 2^24
-    # the MXU cumsum is exact; past it (8-channel x 65535-sample frames)
+    # the matmul cumsum is exact; past it (8-channel x 65535-sample frames)
     # fall back to the scan form.
     if n_wire * (block_size * 40 + 128) + 128 < (1 << 24):
         dep_cum = _cumsum_bits_exact(nb)
@@ -522,6 +525,194 @@ def frame_symbol_stream(
     total_bits = dep_cum[:, -1]
     dep_nbv = jnp.concatenate(dep_nbv_parts, axis=1)
     return dep_cum, total_bits, dep_val_parts, dep_nbv
+
+
+# -- merged deposits: pair/quad merging and dword splitting ------------------
+# Wide variable-distance shifts are hand-rolled u32 limb math: XLA's u64
+# variable shifts can lower through per-column gathers, so everything here
+# stays in u32 lanes after one constant-distance u64 -> limb split.
+
+
+def _shl_pair(h, lo, b):
+    """(h, lo) u32 pair << b for b in [0, 31], returning the three limbs
+    (carry-out, hi, lo) of the 96-bit result. Branchless."""
+    bu = b.astype(jnp.uint32)
+    inv = jnp.clip(32 - b, 1, 31).astype(jnp.uint32)
+    nz = b > 0
+    z = jnp.uint32(0)
+    spill = lambda x: jnp.where(nz, x >> inv, z)  # x >> (32-b), 0 at b==0
+    return spill(h), (h << bu) | spill(lo), lo << bu
+
+
+def _merge_pairs(d_cum, val, nbv):
+    """Fuse adjacent deposit pairs: (val_a << width_b) | val_b deposited at
+    pair-field end, nbv_a + width_b bits. Width-0 / masked partners are
+    identities; pairs whose combined deposited span exceeds 64 bits cannot
+    merge and raise ``cannot`` (the caller ORs it into the overflow flag).
+    Returns (d_cum, (val_hi, val_lo) u32 pair, nbv, cannot) over ceil(S/2)
+    columns."""
+    n, s = val.shape
+    if s % 2:
+        d_cum = jnp.concatenate([d_cum, d_cum[:, -1:]], axis=1)
+        val = jnp.concatenate([val, jnp.zeros((n, 1), val.dtype)], axis=1)
+        nbv = jnp.concatenate([nbv, jnp.zeros((n, 1), nbv.dtype)], axis=1)
+    # u64 -> u32 limbs first (constant-distance shift = a limb move); all
+    # variable-distance math below stays in u32
+    vh = (val >> jnp.uint64(32)).astype(jnp.uint32)
+    vl = val.astype(jnp.uint32)
+    ca, cb = d_cum[:, 0::2], d_cum[:, 1::2]
+    ha, la = vh[:, 0::2], vl[:, 0::2]
+    hb, lb = vh[:, 1::2], vl[:, 1::2]
+    na, nb_ = nbv[:, 0::2], nbv[:, 1::2]
+    width_b = cb - ca  # field b's TOTAL width (unary zeros included)
+    a_live = na > 0
+    tot = na + width_b
+    cannot = jnp.any(a_live & (tot > 64))
+    # (ha, la) << width_b over u32 limbs; width_b in [0, 63] when mergeable
+    small = width_b < 32
+    b_lo = jnp.clip(width_b, 0, 31)
+    b_hi = jnp.clip(width_b - 32, 0, 31)
+    _, sh_h, sh_l = _shl_pair(ha, la, b_lo)
+    big_h = la << b_hi.astype(jnp.uint32)  # low limb crosses into hi
+    sa_h = jnp.where(small, sh_h, big_h)
+    sa_l = jnp.where(small, sh_l, jnp.uint32(0))
+    # field b's value occupies the low width_b bits: disjoint from the
+    # shifted field-a bits whenever the pair merges, so or == add
+    hm = jnp.where(a_live, sa_h | hb, hb)
+    lm = jnp.where(a_live, sa_l | lb, lb)
+    nm = jnp.where(a_live, tot, nb_)
+    return cb, (hm, lm), nm, cannot
+
+
+def _merge_quads(d_cum, val, nbv):
+    """Two merge rounds: pairs (<=64-bit, _merge_pairs) then adjacent PAIR
+    deposits into <=96-bit quads — (val_a << width_b) | val_b over three
+    u32 limbs, deposited at the quad-field end. The deposit stream shrinks
+    to ceil(S/4) columns, and dword-granular binning needs only 3 slot
+    compares per deposit (5 live word contributions — the 6th word is
+    provably untouched), so stage-1 compare work drops ~37% vs pairs.
+    Gate by content width: 4 symbols of ~(depth+2) bits must fit 96, so
+    callers use quads for depth <= 16 only (pairs cover the rest).
+    Returns (d_cum, (h, m, l) u32 limbs, nbv, cannot)."""
+    d_cum, (ha_all, la_all), nbv, cannot1 = _merge_pairs(d_cum, val, nbv)
+    n, s = d_cum.shape
+    if s % 2:
+        d_cum = jnp.concatenate([d_cum, d_cum[:, -1:]], axis=1)
+        z = jnp.zeros((n, 1), jnp.uint32)
+        ha_all = jnp.concatenate([ha_all, z], axis=1)
+        la_all = jnp.concatenate([la_all, z], axis=1)
+        nbv = jnp.concatenate([nbv, jnp.zeros((n, 1), nbv.dtype)], axis=1)
+    ca, cb = d_cum[:, 0::2], d_cum[:, 1::2]
+    ha, la = ha_all[:, 0::2], la_all[:, 0::2]
+    hb, lb = ha_all[:, 1::2], la_all[:, 1::2]
+    na, nb_ = nbv[:, 0::2], nbv[:, 1::2]
+    width_b = cb - ca  # field b's TOTAL width (unary zeros included)
+    a_live = na > 0
+    tot = na + width_b
+    cannot = cannot1 | jnp.any(a_live & (tot > 96))
+    # (ha, la) << width_b over three limbs; width_b in [0, 95] if mergeable
+    k = jnp.clip(width_b >> 5, 0, 2)
+    b = width_b & 31
+    c2, c1, c0 = _shl_pair(ha, la, b)
+    z = jnp.uint32(0)
+    k1 = k == 1
+    k2 = k == 2
+    # limb-rotate by k: value < 2^(96 - 32k) when merging, so nothing spills
+    sh_h = jnp.where(k2, c0, jnp.where(k1, c1, c2))
+    sh_m = jnp.where(k2, z, jnp.where(k1, c0, c1))
+    sh_l = jnp.where(k2, z, jnp.where(k1, z, c0))
+    # field b's value (<= 64 bits, right-aligned) is disjoint when merging
+    hm = jnp.where(a_live, sh_h, z)
+    mm = jnp.where(a_live, sh_m | hb, hb)
+    lm = jnp.where(a_live, sh_l | lb, lb)
+    nm = jnp.where(a_live, tot, nb_)
+    return cb, (hm, mm, lm), nm, cannot
+
+
+def _split3d(d_cum, val3, nbv):
+    """Per-deposit first-DWORD index + five u32 word contributions: a
+    <=96-bit value at in-dword bit offset r <= 63 ends by bit r + 96 <=
+    159, so it spans at most THREE dwords but only FIVE words of the
+    192-bit window (the 6th word starts at bit 160 — provably untouched).
+    Left-justify over limbs: shift 192 - r - nbv in [33, 191].
+    Returns (dw0, s0, s1, s2, s3, s4) with s_i the contribution to word
+    2*dw0 + i (MSB-first stream order)."""
+    h, m, l = val3
+    d_start = d_cum - nbv
+    dw0 = (d_start >> 6).astype(jnp.int32)
+    r = (d_start & 63).astype(jnp.int32)
+    sh = 192 - r - nbv
+    k = sh >> 5  # in [1, 5]
+    b = sh & 31
+    # (h, m, l) << b over four limbs
+    bu = b.astype(jnp.uint32)
+    inv = jnp.clip(32 - b, 1, 31).astype(jnp.uint32)
+    nz = b > 0
+    z = jnp.uint32(0)
+    spill = lambda x: jnp.where(nz, x >> inv, z)
+    d3 = spill(h)
+    d2 = (h << bu) | spill(m)
+    d1 = (m << bu) | spill(l)
+    d0 = l << bu
+
+    # word 5-k gets limb 0 (low), upward: s_{5-k-j} = d_j
+    def pick(*cases):
+        # cases: list of (k value, limb) pairs; where-chain select
+        out = z
+        for kv, limb in cases:
+            out = jnp.where(k == kv, limb, out)
+        return out
+
+    s0 = pick((5, d0), (4, d1), (3, d2), (2, d3))
+    s1 = pick((4, d0), (3, d1), (2, d2), (1, d3))
+    s2 = pick((3, d0), (2, d1), (1, d2))
+    s3 = pick((2, d0), (1, d1))
+    s4 = pick((1, d0))
+    live = nbv > 0
+    msk = lambda x: jnp.where(live, x, z)
+    return dw0, msk(s0), msk(s1), msk(s2), msk(s3), msk(s4)
+
+
+def _split2d(d_cum, val, nbv):
+    """Per-deposit first-DWORD index + four u32 word contributions: a
+    <=64-bit value at any bit offset spans at most TWO 64-bit dwords
+    (words [2*dw0 .. 2*dw0+3]), so dword-granular binning needs only two
+    slot compares per deposit where word-granular needs three, over half
+    the slots. Left-justify the value in the 128-bit window starting at
+    its first dword: shift 128 - r - nbv with r the in-dword bit offset.
+    ``val`` is a (hi, lo) u32 limb pair (from _merge_pairs) or a u64 array.
+    Returns (dw0, s0, s1, s2, s3) with s_i the contribution to word
+    2*dw0 + i (MSB-first stream order)."""
+    if isinstance(val, tuple):
+        vh, vl = val
+    else:
+        vh = (val >> jnp.uint64(32)).astype(jnp.uint32)
+        vl = val.astype(jnp.uint32)
+    d_start = d_cum - nbv
+    dw0 = (d_start >> 6).astype(jnp.int32)
+    r = (d_start & 63).astype(jnp.int32)
+    sh = 128 - r - nbv  # in [1, 127]; nbv == 0 rows are masked below
+    # v << sh over limbs: sh = 32*k + b with k in {0..3}, b in [0, 31]
+    k = sh >> 5
+    b = sh & 31
+    a2, a1, a0 = _shl_pair(vh, vl, b)
+    z = jnp.uint32(0)
+    k1 = k == 1
+    k2 = k == 2
+    k3 = k == 3
+    # stream word i of the window = limb (3 - i) of (v << sh)
+    s0 = jnp.where(k3, a0, jnp.where(k2, a1, jnp.where(k1, a2, z)))
+    s1 = jnp.where(k3, z, jnp.where(k2, a0, jnp.where(k1, a1, a2)))
+    s2 = jnp.where(k3, z, jnp.where(k2, z, jnp.where(k1, a0, a1)))
+    s3 = jnp.where(k3, z, jnp.where(k2, z, jnp.where(k1, z, a0)))
+    live = nbv > 0
+    return (
+        dw0,
+        jnp.where(live, s0, z),
+        jnp.where(live, s1, z),
+        jnp.where(live, s2, z),
+        jnp.where(live, s3, z),
+    )
 
 
 def deposit_stream_windowed(
@@ -534,8 +725,8 @@ def deposit_stream_windowed(
     row_words: int = 32,
     quad: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Pure-XLA windowed binning of the pair-merged deposit stream — no
-    Pallas, no scatter, MXU for the window combine.
+    """Windowed binning of the pair- (or quad-) merged deposit stream: no
+    scatter, and a matrix product for the window combine.
 
     Two stages, both with static shapes and no read-modify-write chains:
 
@@ -543,8 +734,7 @@ def deposit_stream_windowed(
        bounded range (monotone keys), so its contributions bin into a
        [win_rows * row_words]-word window starting at its first key aligned
        DOWN to a row_words-word row. One fused compare-against-iota
-       reduction per chunk — the same arithmetic as the Pallas kernel,
-       scheduled by XLA. Stage-1 cost is proportional to W = win_rows *
+       reduction per chunk. Stage-1 cost is proportional to W = win_rows *
        row_words, so finer rows (32 words) beat 128-word rows: the
        alignment remainder shrinks from <=127 to <=row_words-1 and W drops
        384 -> 256 for the same content span bound.
@@ -552,16 +742,15 @@ def deposit_stream_windowed(
        win_rows`` (row_words-word rows). Overlap-adding all windows into
        the frame's output rows is a one-hot matmul over row keys: windows
        split into 4 bf16 byte planes ([N, K, row_words] each), multiplied
-       by the [N, R, K] row-key one-hot on the MXU, and reassembled.
-       Disjoint bit ranges make every per-(word, byte) sum <= 255, exactly
-       representable in bf16/f32 — the matmul is bit-exact.
+       by the [N, R, K] row-key one-hot with f32 accumulation, and
+       reassembled. Disjoint bit ranges make every per-(word, byte) sum
+       <= 255, exactly representable in bf16 and f32 — the matmul is
+       bit-exact at any matmul precision (its operands are bf16 already).
 
     Returns (words u32 [N, max_words], overflow bool); overflow ORs the
     window-span check with merge-impossibility, and the caller falls back
-    to the exact segment-sum path (same protocol as the Pallas kernel).
+    to the exact segment-sum path.
     """
-    from .pallas_deposit import _merge_pairs, _merge_quads, _split2d, _split3d
-
     if quad:
         # <=96-bit quad deposits: 3 dword slots, 5 live word contributions
         # (the 6th window word is provably untouched — _split3d)
@@ -608,10 +797,8 @@ def deposit_stream_windowed(
     # compare each with two word outputs — so the compare work is
     # (2*chunk) * Wd * (1 cmp + 2 sel + 2 add), ~45% less than 3-word
     # binning at chunk * W * (3 cmp + 3 sel + 3 add). The deposit axis is
-    # the MINOR axis of the virtual 4D compare tensor: measured on v5e, a
-    # deposit-major layout breaks XLA's reduce fusion and spills the
-    # intermediate to HBM; minor-axis chunks fuse fully and run at VPU
-    # compute throughput.
+    # the MINOR axis of the virtual 4D compare tensor, so the compare fuses
+    # into the reduce instead of materializing in device memory.
     def cc(*streams):
         return jnp.concatenate(
             [
@@ -624,10 +811,9 @@ def deposit_stream_windowed(
         )
 
     # TWO sibling reduces, one per word plane, each recomputing the slot
-    # compare inline. (A single reduce over a stacked plane axis reads
-    # nicer but measures WORSE: XLA materializes the [N, nch, Wd, 2chunk]
-    # predicate as its own fusion (~110 MB) and streams it into the
-    # reduce — 3.7 ms vs 2.7 ms for the duplicated inline compares.)
+    # compare inline. (A single reduce over a stacked plane axis invites
+    # XLA to materialize the [N, nch, Wd, 2chunk] predicate as its own
+    # fusion and stream it into the reduce.)
     tio = jax.lax.broadcasted_iota(jnp.int32, (1, 1, Wd, 1), 2)
     relx = rel[:, :, None, :]
     relcat = jnp.concatenate([relx, relx + 1], axis=3)  # [N, nch, 1, 2c]
@@ -648,30 +834,18 @@ def deposit_stream_windowed(
         axis=3, dtype=jnp.int32
     )
     # stage 2: overlap-add via one-hot matmul over row_words-word rows,
-    # one matmul per (byte plane, word parity). MEASURED (v5e, 1024-frame
-    # 16-bit batch):
-    # * concatenating the four byte planes on the minor axis so one wider
-    #   matmul reads the one-hot once is ~0.6-1.5 ms SLOWER — the
-    #   [N, K, 4*rw] concat materializes and the [N, R, 4*rw] f32 output
-    #   outweighs the saved one-hot reads; per-plane, XLA fuses each
-    #   plane's shift/mask into the matmul operand.
-    # * interleaving acc0/acc1 into stream-word order BEFORE the matmul
-    #   (stack + reshape on the bf16 planes) cost ~1.6 ms/batch of pure
-    #   relayout: the stage-1 outputs are batch-minor ({0,2,1}) while the
-    #   dot wants K-minor ({1,2,0}), and the interleave stack forced four
-    #   byte planes through copy -> reshape -> copy chains (per-fusion
-    #   profile, r4). Keeping the EVEN and ODD word planes separate
-    #   through half-width dots and interleaving ONCE on the final i32
-    #   output (a single [N, R, rw/2, 2] stack) avoids all of it.
+    # one matmul per (byte plane, word parity), so each plane's shift/mask
+    # fuses into its matmul operand. The EVEN and ODD word planes stay
+    # separate through half-width dots and interleave ONCE on the final
+    # i32 output (a single [N, R, rw/2, 2] stack): interleaving the bf16
+    # planes before the dot would relayout all four byte planes.
     K = nch * win_rows
     rw2 = row_words // 2
     winb_e = acc0.reshape(n, K, rw2)  # even stream words of each row
     winb_o = acc1.reshape(n, K, rw2)  # odd stream words
     # pre-transpose ONCE in i32: the dot below wants its rhs K-minor while
-    # stage 1 produces batch-minor accumulators; without this, XLA
-    # relayouts every bf16 byte plane separately (7 copies, 0.41 ms/batch
-    # measured r5) instead of 2 i32 copies here (~0.15 ms). The byte
-    # extraction then fuses into each dot operand with no further copies.
+    # stage 1 produces batch-minor accumulators; transposing here costs two
+    # i32 copies instead of one relayout per bf16 byte plane.
     winb_e = jnp.swapaxes(winb_e, 1, 2)  # [N, rw2, K]
     winb_o = jnp.swapaxes(winb_o, 1, 2)
     keys = base_row[:, :, None] + jnp.arange(win_rows, dtype=jnp.int32)
@@ -712,74 +886,72 @@ def pack_frames(
     lpc_order: int = 0,
     lpc_precision: int = 14,
     deposit: str = "segsum",
-    interpret: bool = False,
     depth: int = 24,
 ):
-    """Full frames (header + subframes) -> (words u32 [N, W], total_bits).
+    """Full frames (header + subframes) -> (words u32 [N, W], total_bits,
+    overflow).
 
     Every wire field — header bytes, subframe fronts, partition params (on
     their grid columns), residual codes — is one column of a single width
     array; one prefix sum yields every bit offset and EVERY column deposits,
-    so there is exactly one deposit stream (monotone word keys) feeding
-    either the Pallas windowed-binning kernel or the exact segment-sum path.
+    so there is exactly one deposit stream (monotone word keys). ``deposit``
+    picks how it lands in words: "segsum" (exact sorted segment-sums, never
+    overflows), "windowed" (deposit_stream_windowed, quad-merged where the
+    depth allows) or "windowed_pair" (windowed, pair-merged only).
     """
+    if deposit not in DEPOSIT_MODES:
+        raise ValueError(
+            f"unknown deposit mode {deposit!r}; expected one of "
+            f"{DEPOSIT_MODES}"
+        )
     dep_cum, total_bits, dep_val_parts, dep_nbv = frame_symbol_stream(
         plan, frame_numbers, hstatic, block_size, max_rice_order,
         lpc_order=lpc_order, lpc_precision=lpc_precision,
     )
 
-    if deposit in ("binned", "windowed", "windowed_pair"):
-        # both fast paths pair-merge adjacent symbols into <=64-bit
-        # deposits, so values are u64 regardless of depth
+    if deposit != "segsum":
+        # merging pairs adjacent symbols into <=64-bit deposits, so values
+        # are u64 regardless of depth
         dep_val = jnp.concatenate(
             [v.astype(jnp.uint64) for v in dep_val_parts], axis=1
         )
-        if deposit in ("windowed", "windowed_pair"):
-            # chunk/window sizing: stage-1 cost scales as S * window, so
-            # small chunks with tight windows win — measured sweet spot
-            # chunk=32 pairs (chunk 128 -> 32 cut the deposit stage ~35%;
-            # 16/8 lose to per-chunk overheads). Windows align to 32-word
-            # (16-dword) rows: a window needs the <=15-dword alignment
-            # remainder + the content span + the span-check slack. The
-            # span is depth-bound: a sustained merged width beyond
-            # (depth+2) bits per symbol (escape samples <= depth+1 plus a
-            # 5-bit param column) implies the estimator would have chosen
-            # verbatim, so heavier chunks only arise on adversarial
-            # content, where the overflow flag falls back to the exact
-            # path. depth <= 16 quad-merges 4 symbols into <=96-bit
-            # deposits (16 per chunk — same chunk count and window as 32
-            # pairs, ~37% less stage-1 compare work); deeper content and
-            # 33-bit side channels (i64 planes) stay pair-merged.
-            # "windowed_pair" forces pairs — the capacity ladder's tier-1
-            # re-encode uses it so quad-unmergeable content still gets a
-            # fast windowed pass instead of the exact scatter path.
-            quad = (
-                deposit == "windowed"
-                and depth <= 16
-                and plan.planes.dtype != jnp.int64
-            )
-            if quad:
-                chunk = 16
-                unit_bits = 4 * (depth + 2)
-                slack = 2  # rel <= Wd - 3: 3-dword spans
-            else:
-                chunk = 32
-                unit_bits = (
-                    68 if plan.planes.dtype == jnp.int64 else 2 * (depth + 2)
-                )
-                slack = 1  # rel <= Wd - 2
-            span_dw = -(-chunk * unit_bits // 64)
-            wr = -(-(span_dw + 15 + slack) // 16)
-            main_words, overflow = deposit_stream_windowed(
-                dep_cum, dep_val, dep_nbv, max_words, chunk=chunk,
-                win_rows=wr, row_words=32, quad=quad,
-            )
+        # chunk/window sizing: stage-1 cost scales as S * window, so small
+        # chunks with tight windows win (chunk=32 pairs; much smaller
+        # chunks lose to per-chunk overheads). Windows align to 32-word
+        # (16-dword) rows: a window needs the <=15-dword alignment
+        # remainder + the content span + the span-check slack. The span
+        # is depth-bound: a sustained merged width beyond (depth+2) bits
+        # per symbol (escape samples <= depth+1 plus a 5-bit param column)
+        # implies the estimator would have chosen verbatim, so heavier
+        # chunks only arise on adversarial content, where the overflow
+        # flag falls back to the exact path. depth <= 16 quad-merges 4
+        # symbols into <=96-bit deposits (16 per chunk — same chunk count
+        # and window as 32 pairs, ~37% less stage-1 compare work); deeper
+        # content and 33-bit side channels (i64 planes) stay pair-merged.
+        # "windowed_pair" forces pairs — the capacity ladder's tier-1
+        # re-encode uses it so quad-unmergeable content still gets a
+        # windowed pass instead of the exact scatter path.
+        quad = (
+            deposit == "windowed"
+            and depth <= 16
+            and plan.planes.dtype != jnp.int64
+        )
+        if quad:
+            chunk = 16
+            unit_bits = 4 * (depth + 2)
+            slack = 2  # rel <= Wd - 3: 3-dword spans
         else:
-            from .pallas_deposit import deposit_stream_binned
-
-            main_words, overflow = deposit_stream_binned(
-                dep_cum, dep_val, dep_nbv, max_words, interpret=interpret
+            chunk = 32
+            unit_bits = (
+                68 if plan.planes.dtype == jnp.int64 else 2 * (depth + 2)
             )
+            slack = 1  # rel <= Wd - 2
+        span_dw = -(-chunk * unit_bits // 64)
+        wr = -(-(span_dw + 15 + slack) // 16)
+        main_words, overflow = deposit_stream_windowed(
+            dep_cum, dep_val, dep_nbv, max_words, chunk=chunk,
+            win_rows=wr, row_words=32, quad=quad,
+        )
         return main_words, total_bits, overflow
 
     # deposits are <= 32 bits except the 33-bit side-channel samples of

@@ -1,5 +1,6 @@
-"""Parallel CRC-16/UMTS over packed frame words — the TPU replacement for
-the reference's serial PCLMULQDQ folding (libFLAC/Crc16.zig).
+"""Parallel CRC-16/UMTS over packed frame words — the data-parallel
+replacement for the reference's serial PCLMULQDQ folding
+(libFLAC/Crc16.zig).
 
 CRC is GF(2)-linear: CRC(M) = sum_i b_i(x) * x^(8*(L-1-i)+16) mod G. Over
 the *fixed-width* padded word buffer every byte position has a static
@@ -82,15 +83,15 @@ def crc16_words(words: jnp.ndarray, byte_len: jnp.ndarray) -> jnp.ndarray:
             ^ jnp.where(hi & bit != 0, t_hi << sh, z)
             ^ jnp.where(lo & bit != 0, t_lo << sh, z)
         )
-    # xor-reduce the UNREDUCED 31-bit products via halving tree (custom
-    # lax.reduce computations can serialize on TPU; log2(maxB) elementwise
-    # xors stay on the VPU). XOR never carries, so the tree result stays
+    # xor-reduce the UNREDUCED 31-bit products via halving tree (a custom
+    # lax.reduce computation can lower to a serial loop; log2(maxB)
+    # elementwise xors cannot). XOR never carries, so the tree result stays
     # < 2^31, and mod-G is GF(2)-linear: reducing once per FRAME after the
-    # tree equals reducing every element first — which moved the 15-select
-    # reduction loop off the [N, W] hot sweep (~0.07 ms/batch, r5).
+    # tree equals reducing every element first — which keeps the 15-select
+    # reduction loop off the [N, W] hot sweep.
     crc31 = _tree_xor(p)
-    # reduce the 31-bit value mod G bitwise (a table gather lowers as
-    # per-element gathers on TPU; 15 selects on [N] are free)
+    # reduce the 31-bit value mod G bitwise (15 selects on [N] instead of
+    # a per-element table gather)
     for i in range(30, 15, -1):
         crc31 = jnp.where(
             (crc31 >> i) & 1 == 1,

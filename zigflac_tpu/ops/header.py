@@ -134,9 +134,9 @@ def build_headers(
     b = jnp.where(idx == 2, jnp.uint8(static.byte2), b)
     byte3 = ((channels_code << 4) | static.depth_code).astype(jnp.uint8)
     b = jnp.where(idx == 3, byte3[:, None], b)
-    # frame-number region [4, 4+fn_len): per-element table gathers
-    # serialize (~16 ns/element on TPU) — the 7 possible source columns
-    # go through a where-chain instead (CLAUDE.md small-table rule)
+    # frame-number region [4, 4+fn_len): instead of per-element table
+    # gathers, the 7 possible source columns go through a where-chain
+    # (CLAUDE.md small-table rule)
     fn_pos = idx - 4
     in_fn = (fn_pos >= 0) & (fn_pos < fn_len[:, None])
     fn_sel = jnp.zeros((n, MAX_HEADER_BYTES), jnp.uint8)

@@ -8,8 +8,8 @@ coefficients with error feedback + shifted integer prediction.
 Determinism architecture (golden == device == any platform, by construction):
 
 * The ENTIRE derivation is integer arithmetic — no float touches
-  coefficients anywhere (TPU-emulated f64 is not correctly rounded, and
-  cross-backend float would break the byte-exactness invariant):
+  coefficients anywhere (float results can differ across backends in the
+  last bits, which would break the byte-exactness invariant):
   - autocorrelation: samples windowed by a Q8 fixed-point Tukey(0.5)
     window (WINDOW_Q — see tukey_qw for why 8), each lag sum carried as three int64 limb partial sums (hi·hi,
     hi·lo+lo·hi, lo·lo over 24-bit limbs) — `lag_sums` (jnp) and
@@ -113,9 +113,9 @@ def _lag_sums_impl(planes, order: int, sample_size, xp):
     x = planes.astype(xp.int64) * tukey_qw(B)
     m24 = np.int64((1 << _LIMB) - 1)
     tier = _lag_tier(sample_size, B)
-    # Narrow operand storage: the product-reduces are HBM-bound (the i64
-    # windowed signal is re-streamed once per product per lag), and on TPU
-    # an i64 tensor is an emulated limb PAIR — double the traffic. Every
+    # Narrow operand storage: the product-reduces are memory-bound (the
+    # i64 windowed signal is re-streamed once per product per lag), and an
+    # i64 operand moves twice the bytes of an i32 one. Every
     # operand whose magnitude proof fits i32 is stored i32 and widened
     # back to i64 inside the product (the cast is exact and fuses into the
     # reduce): tier 0 always (|xw| <= 2^(16+WINDOW_Q) there), tier 1's x
@@ -133,12 +133,10 @@ def _lag_sums_impl(planes, order: int, sample_size, xp):
             # exact and halves the b-side stream of every lag reduce (the
             # widen back to i64 fuses into the product-reduce). Depths
             # 17-18 still reach tier 1 with |yh| up to 2^17 — those keep
-            # i32 halves. MEASURED DEAD END (r4, A/B on v5e): decomposing
-            # the products over the halves alone (hh / hl+lh / ll with a
-            # limb recombine) to drop the i32 x stream entirely was ~2 ms
-            # SLOWER per batch (16.11 vs 14.15 ms LPC mode) despite ~33%
-            # fewer accounted bytes — the all-16-bit operand reduces and
-            # the fused (ah*bl + al*bh) sum vectorize worse than the
+            # i32 halves. Decomposing the products over the halves alone
+            # (hh / hl+lh / ll with a limb recombine) to drop the i32 x
+            # stream entirely was measured slower despite fewer bytes: the
+            # all-16-bit operand reduces vectorize worse than the
             # i32-times-i16 form. Keep x i32 as the a-side.
             yh = (x >> np.int64(16)).astype(xp.int16)
             yl = (x & np.int64(0xFFFF)).astype(xp.uint16)
@@ -314,7 +312,7 @@ def fixed_point_levinson(lags, orders: Tuple[int, ...], precision: int, xp):
     a_clip = np.int64(64 << _Q)
     # coefficients as ONE [..., max_order] tensor: the j-loops over
     # per-coefficient arrays emitted O(max_order^2) tiny device ops whose
-    # per-op sequencing cost (~1-2 us each on a TPU core) dominated the
+    # per-op launch and sequencing cost dominated the
     # recursion's actual arithmetic; the batched forms below are the same
     # exact integer ops (per-term >> _Q floors kept inside the reduce;
     # i64 sums can't overflow: |(c*r) >> Q| <= 2^33, <= 31 terms) fused
@@ -411,8 +409,8 @@ def lpc_residuals(planes, qcoeffs, shift, order, max_order: int, xp,
 
     ``sample_size`` (the audio depth; side planes carry one extra bit,
     d = sample_size + 1) enables a STATIC overflow proof that skips the
-    dynamic fits check — a [planes, B] and-reduce that measured 0.88
-    ms/batch at 154 GB/s on a v5e (reduce-to-pred serializes). Proof with
+    dynamic fits check — a [planes, B] and-reduce over every residual.
+    Proof with
     |s| <= 2^d, order <= 32 and the _quantize_fixed geometry (shift =
     clip(precision + 27 - bitlen(cmax), 0, 15), Levinson clamp |c| <= 32
     in Q28 so bitlen(cmax) <= 34, clip |q_j| <= 2^(precision-1)):
@@ -430,9 +428,9 @@ def lpc_residuals(planes, qcoeffs, shift, order, max_order: int, xp,
     narrow = sample_size is not None and sample_size <= 18
     if narrow:
         # Split each tap product into two i32 partial sums instead of one
-        # emulated-i64 multiply-accumulate (a TPU i64 product is ~4 u32
-        # multiplies + carries; this pass measured 0.73 ms/batch at 276
-        # GB/s — compute-bound). With |q| <= 2^14 (precision <= 15) and
+        # i64 multiply-accumulate (an i64 product costs several 32-bit
+        # multiplies + carries on 32-bit lanes). With |q| <= 2^14
+        # (precision <= 15) and
         # |s| <= 2^d, d <= 19: |sum q*(s>>8)| <= 32 * 2^14 * 2^11 = 2^30
         # and |sum q*(s&0xFF)| <= 32 * 2^14 * 2^8 = 2^27 — both fit i32 —
         # and s == (s>>8)*256 + (s&0xFF) exactly (arithmetic shift +
@@ -464,9 +462,8 @@ def lpc_residuals(planes, qcoeffs, shift, order, max_order: int, xp,
     else:
         idx = jax.lax.broadcasted_iota(xp.int32, planes.shape, planes.ndim - 1)
     if narrow:
-        # finish in PURE i32 — every elementwise i64 op in the finale pays
-        # the TPU 2-limb emulation (the (<<8)+lo >> shift - sub chain
-        # measured ~0.28 ms/batch, r5). Exact split of the shift:
+        # finish in PURE i32 — keeps the (<<8)+lo >> shift - sub chain
+        # out of 64-bit lanes. Exact split of the shift:
         # pred = ((hi << 8) + lo) >> s with s in [0, 15]; for s_l =
         # min(s, 8), hi*2^8 is divisible by 2^s_l, so the first >> s_l
         # distributes term-wise (hi*2^8/2^s_l exact + floor(lo/2^s_l)) and

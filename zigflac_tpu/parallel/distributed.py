@@ -1,20 +1,20 @@
-"""Multi-host (multi-process) scaling over the DCN mesh axis.
+"""Multi-host (multi-process) scaling over the cross-host mesh axis.
 
-SURVEY §5's sharding story is pjit/shard_map over an ICI/DCN mesh; the
-single-host half (parallel/mesh.py) shards the frame axis over local
-chips' ICI. This module adds the DCN half: after ``initialize()`` (a
-``jax.distributed.initialize`` wrapper — the TPU-native analog of the
-reference having *no* communication backend at all, SURVEY §2), every
-process sees the GLOBAL device list, ``default_mesh`` spans hosts
-process-major, and the SAME shard_map programs run SPMD across pods:
+SURVEY §5's sharding story is pjit/shard_map over a device mesh; the
+single-host half (parallel/mesh.py) shards the frame axis over the local
+devices. This module adds the cross-host half: after ``initialize()`` (a
+``jax.distributed.initialize`` wrapper — the reference has *no*
+communication backend at all, SURVEY §2), every process sees the GLOBAL
+device list, ``default_mesh`` spans hosts process-major, and the SAME
+shard_map programs run SPMD across hosts:
 
 * inputs: each process materializes only its own frame rows
   (``make_global_batch`` -> ``jax.make_array_from_process_local_data``),
-  so PCM never crosses DCN — frames are data-parallel;
+  so PCM never crosses hosts — frames are data-parallel;
 * compute: unchanged (``mesh.encode_compact_sharded``); the one
-  cross-shard collective (capacity-overflow pmax) now spans DCN;
+  cross-shard collective (capacity-overflow pmax) now spans hosts;
 * outputs: each process byte-collects its own shard rows and the
-  per-process FLAC byte strings are exchanged once over DCN
+  per-process FLAC byte strings are exchanged once between hosts
   (``allgather_parts``), so every process assembles the identical file.
 
 The virtual-CPU twin of this path (2 processes x 4 host devices, gloo
@@ -38,8 +38,8 @@ def initialize(
     """Idempotent ``jax.distributed.initialize`` wrapper.
 
     Arguments default to the standard JAX env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or,
-    on TPU pods, the platform's automatic cluster detection. On CPU
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); with
+    neither, jax.distributed.initialize's own cluster detection. On CPU
     backends the gloo collectives implementation is selected first (the
     host-platform transport for cross-process psum/pmax). Returns True
     when the process joined a multi-process cluster, False when the

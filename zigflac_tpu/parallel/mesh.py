@@ -1,11 +1,11 @@
 """Multi-chip scaling: frame-axis data parallelism over a device mesh.
 
 The reference is single-threaded with no communication backend (SURVEY.md §2
-checklist); the TPU-native equivalent is SPMD over a ``jax.sharding.Mesh``
-with the frame batch sharded across chips. Frames are independent, so the
+checklist); the accelerator equivalent is SPMD over a ``jax.sharding.Mesh``
+with the frame batch sharded across devices. Frames are independent, so the
 design keeps cross-shard traffic minimal: packed bytes stay sharded (the
-host assembles per shard, in frame order), and the one collective riding
-ICI is the global capacity-overflow any-reduce (``lax.pmax`` over the mesh
+host assembles per shard, in frame order), and the one collective between
+devices is the global capacity-overflow any-reduce (``lax.pmax`` over the mesh
 axis) so every shard's metadata row reports whether ANY chip tripped its
 deposit-window budget. STREAMINFO's min/max frame sizes intentionally stay
 on host: the reference's running-max update rule (metadata.zig quirk) is
@@ -35,7 +35,9 @@ FRAME_AXIS = "frames"
 def default_mesh(devices=None) -> Mesh:
     """1-D frame-axis mesh over all (global) devices. After
     parallel.distributed.initialize() jax.devices() spans every host, so
-    the same mesh/shard_map programs scale ICI -> DCN; devices sort
+    the same mesh/shard_map programs scale from one host to many. The
+    mesh is 1-D and follows the algorithm alone: a host's cards reach each
+    other all to all, so no topology shape applies. Devices sort
     process-major so each process owns one CONTIGUOUS frame-row range
     (distributed.local_row_bounds relies on this)."""
     devices = list(devices if devices is not None else jax.devices())
@@ -52,7 +54,7 @@ def _encode_shard_compact(frames, frame_numbers, *, config, depth,
     """Per-shard production compact-stream encode: each chip packs and
     byte-compacts its local frames; the host assembles shard streams in
     frame order. The metadata row grows one entry: the global overflow
-    any-reduce (``pmax`` over ICI), alongside the local flag — the host can
+    any-reduce (``pmax`` over the mesh), alongside the local flag — the host can
     read any single row to learn whether the whole batch needs the capacity
     ladder, while the local flags still say which shard to re-encode."""
     from ..models.pipeline import _encode_batch_compact
